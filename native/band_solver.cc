@@ -11,8 +11,8 @@
 // exactly what MUMPS's multifrontal LDL^T does for this matrix class, at
 // O(n b^2) flops.
 //
-// On TPU the production path is the batched block-Thomas factorisation in
-// hmcmt2d_tpu/ops/solver.py; this native solver is the host-side oracle the
+// On the GPU the production path is the batched block-Thomas factorisation in
+// hmcmt2d/ops/solver.py; this native solver is the host-side oracle the
 // tests validate it against, and the self-contained CPU baseline for
 // bench.py.  API is C (called from Python via ctypes), handles are opaque
 // int64 ids like the reference's MUMPSfactorization pointers.

@@ -45,50 +45,43 @@ def main():
 
     import jax
 
+    from hmcmt2d.models.forward import enable_x64_for_backend
+
+    enable_x64_for_backend()
     if jax.default_backend() != "cpu":
-        from hmcmt2d_tpu.utils.host import enable_compilation_cache
+        from hmcmt2d.utils.host import enable_compilation_cache
         enable_compilation_cache()
 
     import jax.numpy as jnp
 
-    from hmcmt2d_tpu.io.startup import read_startup
-    from hmcmt2d_tpu.models.forward import default_config, make_forward
-    from hmcmt2d_tpu.models.posterior import InverseProblem, build_inverse_problem
-    from hmcmt2d_tpu.sampler import adapt as A
-    from hmcmt2d_tpu.sampler import checkpoint as CKP
-    from hmcmt2d_tpu.sampler import hmc as H
-    from hmcmt2d_tpu.sampler.driver import (_segment_plan, gauss_newton_mass,
+    from hmcmt2d.io.startup import read_startup
+    from hmcmt2d.models.forward import default_config
+    from hmcmt2d.models.posterior import build_inverse_problem
+    from hmcmt2d.sampler import adapt as A
+    from hmcmt2d.sampler import checkpoint as CKP
+    from hmcmt2d.sampler import hmc as H
+    from hmcmt2d.sampler.driver import (_segment_plan, gauss_newton_mass,
                                             hmc_options, make_factor_fn,
                                             make_potential_vg)
-    from hmcmt2d_tpu.utils.host import to_host, tree_to_host
+    from hmcmt2d.utils.host import to_host, tree_to_host
 
     cfg, mesh, sigma2d, data, obs, err = read_startup(args.startupfile)
     scfg = default_config()
     problem, _m0 = build_inverse_problem(mesh, data, obs, err,
                                          np.asarray(sigma2d).ravel(),
                                          sigma_fixed=cfg.sig_fix, cfg=scfg)
-    # exact engine for the Jacobian (fused vjp under wide vmap unvalidated)
-    cfg_j = dataclasses.replace(scfg, solver_method="thomas", refine_iters=3) \
-        if scfg.solver_method == "fused" else scfg
-    problem_j = InverseProblem(
-        fwd=make_forward(mesh, data, cfg_j), obs=problem.obs,
-        weights=problem.weights, active_idx=problem.active_idx,
-        bg_flat=problem.bg_flat)
-
     ck = CKP.load_checkpoint(args.checkpoint)
     state, m_ref = ck["state"], jnp.asarray(ck["m_ref"])
     print(f"[refresh] loaded {args.checkpoint}: {ck['n_done']} samples done, "
           f"old dt={ck['dt']:.4g}", flush=True)
 
     vg = make_potential_vg(problem, cfg.reg_param)
-    amortize = cfg.amortize and scfg.solver_method != "fused"
-    factor_fn = make_factor_fn(problem) if amortize else None
+    factor_fn = make_factor_fn(problem) if cfg.amortize else None
     opts = dataclasses.replace(hmc_options(cfg), dt=args.dt0)
 
     t0 = time.time()
     mass = gauss_newton_mass(problem, jnp.mean(state.m, axis=0),
-                             cfg.reg_param, jac_problem=problem_j,
-                             chunk=args.jac_chunk)
+                             cfg.reg_param, chunk=args.jac_chunk)
     print(f"[refresh] GN mass rebuilt at the current model in "
           f"{time.time() - t0:.1f}s", flush=True)
 

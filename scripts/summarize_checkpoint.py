@@ -1,13 +1,13 @@
 """Produce posterior artifacts (summary.json, mean/std models, chain logs)
-from a driver checkpoint .npz — so a long checkpointed TPU run can be
+from a driver checkpoint .npz — so a long checkpointed GPU run can be
 snapshotted into committed artifacts at any segment boundary, and a killed
 run loses nothing (the reference writes outputs only at the very end,
 HMCSampler.jl:785-828).
 
 Usage:
   JAX_PLATFORMS=cpu python scripts/summarize_checkpoint.py \
-      runs/dprism3d_mc/checkpoint.npz runs/dprism3d_mc/startupfile \
-      artifacts/dprism3d_mc [--thin 10]
+      runs/myrun/checkpoint.npz runs/myrun/startupfile \
+      artifacts/myrun [--thin 10]
 """
 
 from __future__ import annotations
@@ -48,11 +48,11 @@ def main():
     if args.platform == "cpu":
         jax.config.update("jax_enable_x64", True)
 
-    from hmcmt2d_tpu.io.startup import read_startup
-    from hmcmt2d_tpu.models.posterior import build_inverse_problem
-    from hmcmt2d_tpu.sampler import checkpoint as C
-    from hmcmt2d_tpu.sampler import diagnostics as D
-    from hmcmt2d_tpu.sampler import outputs as O
+    from hmcmt2d.io.startup import read_startup
+    from hmcmt2d.models.posterior import build_inverse_problem
+    from hmcmt2d.sampler import checkpoint as C
+    from hmcmt2d.sampler import diagnostics as D
+    from hmcmt2d.sampler import outputs as O
 
     cfg, mesh, sigma2d, data, obs, err = read_startup(args.startupfile)
     problem, _ = build_inverse_problem(

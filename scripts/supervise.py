@@ -1,13 +1,13 @@
 """Production-run supervisor: liveness + automatic checkpoint resume.
 
-Round-4 postmortem (VERDICT r4 weak #7): the COPROD2 production process died
-mid-run and nothing noticed — the round ended with a stale ``run.pid`` and a
-half-finished posterior.  This wrapper owns the run lifecycle:
+A production process that dies mid-run must not go unnoticed (a stale
+``run.pid`` and a half-finished posterior).  This wrapper owns the run
+lifecycle:
 
 * launches the inversion command, appending stdout/stderr to ``<dir>/run.log``;
 * maintains ``<dir>/run.pid`` (written on spawn, removed on exit — no stale
   pids);
-* on a non-zero exit (device fault, OOM, tunnel drop) restarts the command
+* on a non-zero exit (device fault, OOM, lost host) restarts the command
   with ``--resume`` as long as the checkpoint file exists, up to
   ``--max-restarts`` times with a backoff;
 * exits 0 only when the supervised command itself completed.
@@ -17,8 +17,8 @@ SURVEY.md §5 failure detection); per-chain cputime bookkeeping is the
 closest analogue (HMCSampler.jl:813).
 
 Usage:
-    python scripts/supervise.py --dir runs/coprod2_r5 \
-        --checkpoint runs/coprod2_r5/checkpoint.npz -- \
+    python scripts/supervise.py --dir runs/myrun \
+        --checkpoint runs/myrun/checkpoint.npz -- \
         python -c '...' / hmcmt2d run startupfile --checkpoint ... [args]
 
 Everything after ``--`` is the command; ``--resume`` is appended on

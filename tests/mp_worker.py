@@ -28,7 +28,7 @@ def main():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, repo)
 
-    from hmcmt2d_tpu.parallel.multichain import distributed_init
+    from hmcmt2d.parallel.multichain import distributed_init
 
     if not single:
         distributed_init(f"localhost:{port}", num_processes=2,
@@ -48,8 +48,8 @@ def main():
 
     from jax.experimental import multihost_utils as mu
 
-    from hmcmt2d_tpu.parallel.multichain import ShardedSampler, make_device_mesh
-    from hmcmt2d_tpu.sampler import hmc as H
+    from hmcmt2d.parallel.multichain import ShardedSampler, make_device_mesh
+    from hmcmt2d.sampler import hmc as H
 
     problem, m0 = g._flagship_problem(tiny=True)
     mesh = make_device_mesh(2, 2)      # chains x freq over the 4 global devices

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from hmcmt2d_tpu.io import HMCConfig
-from hmcmt2d_tpu.models import forward as F
-from hmcmt2d_tpu.sampler.driver import run_inversion, _segment_plan
+from hmcmt2d.io import HMCConfig
+from hmcmt2d.models import forward as F
+from hmcmt2d.sampler.driver import run_inversion, _segment_plan
 from tests.test_e2e import tiny_setup
 
 

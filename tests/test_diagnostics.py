@@ -10,7 +10,7 @@ chains with shifted means must be flagged.
 import numpy as np
 from scipy.signal import lfilter
 
-from hmcmt2d_tpu.sampler import diagnostics as D
+from hmcmt2d.sampler import diagnostics as D
 
 
 def _ar1(phi, N, C, P, seed):

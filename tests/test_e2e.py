@@ -4,13 +4,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from hmcmt2d_tpu import mesh as M
-from hmcmt2d_tpu.constants import SIGMA_AIR
-from hmcmt2d_tpu.io import HMCConfig, read_data, read_model
-from hmcmt2d_tpu.models import forward as F
-from hmcmt2d_tpu.sampler import diagnostics as D
-from hmcmt2d_tpu.sampler import outputs as O
-from hmcmt2d_tpu.sampler.driver import run_inversion
+from hmcmt2d import mesh as M
+from hmcmt2d.constants import SIGMA_AIR
+from hmcmt2d.io import HMCConfig, read_data, read_model
+from hmcmt2d.models import forward as F
+from hmcmt2d.sampler import diagnostics as D
+from hmcmt2d.sampler import outputs as O
+from hmcmt2d.sampler.driver import run_inversion
 from tests.test_forward import make_data
 
 

@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import scipy.sparse.linalg as spla
 
-from hmcmt2d_tpu import mesh as M
-from hmcmt2d_tpu.constants import EPS0, MU0, SIGMA_AIR
-from hmcmt2d_tpu.models import forward as F
-from hmcmt2d_tpu.models.data import MTData
-from hmcmt2d_tpu.ops import mt1d
-from hmcmt2d_tpu.utils import cpu_reference as R
+from hmcmt2d import mesh as M
+from hmcmt2d.constants import EPS0, MU0, SIGMA_AIR
+from hmcmt2d.models import forward as F
+from hmcmt2d.models.data import MTData
+from hmcmt2d.ops import mt1d
+from hmcmt2d.utils import cpu_reference as R
 
 
 def layered_setup(rho_layers=(100.0,), z_tops=(0.0,), nrx=5):

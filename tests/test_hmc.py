@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from hmcmt2d_tpu.sampler import hmc as H
+from hmcmt2d.sampler import hmc as H
 
 
 def gaussian_potential_vg(mu, var):
@@ -118,7 +118,7 @@ def test_random_homogeneous_start():
 def test_warmup_adaptation_gaussian():
     """Dual-averaging must hit the target accept rate and the mass must learn
     the per-dimension posterior scales on an anisotropic Gaussian."""
-    from hmcmt2d_tpu.sampler import adapt as A
+    from hmcmt2d.sampler import adapt as A
 
     sd = np.array([0.1, 1.0, 10.0, 0.5])
     vg = gaussian_potential_vg(np.zeros(4), sd**2)
@@ -150,11 +150,11 @@ def test_warmup_adaptation_gaussian():
 
 
 def test_warmup_start_stats_is_iteration_zero():
-    """Regression (round-2 VERDICT weak #2): the warmup result's start row
+    """Regression: the warmup result's start row
     must report the PRE-warmup state — the reference's "Starting status" is
     the status at iteration 0 (HMCSampler.jl:113-115,810-827) — not the
     post-warmup misfit."""
-    from hmcmt2d_tpu.sampler import adapt as A
+    from hmcmt2d.sampler import adapt as A
 
     mu = np.array([3.0, -4.0])
     vg = gaussian_potential_vg(mu, np.ones(2))
@@ -173,7 +173,7 @@ def test_warmup_start_stats_is_iteration_zero():
 
 
 def test_window_schedule():
-    from hmcmt2d_tpu.sampler import adapt as A
+    from hmcmt2d.sampler import adapt as A
 
     w = A.WarmupOptions()
     ends = A.window_schedule(1000, w)
@@ -229,7 +229,7 @@ def test_median_alpha_pool_survives_stuck_chain():
 
     import jax
 
-    from hmcmt2d_tpu.sampler import adapt as A
+    from hmcmt2d.sampler import adapt as A
 
     P, C = 3, 6
     m0 = jnp.zeros((C, P), jnp.float64)
@@ -263,12 +263,12 @@ def test_median_alpha_pool_survives_stuck_chain():
 
 def test_fixed_mass_warmup_segmentation_bit_exact():
     """The dense-metric dt re-adaptation must be segmentation-invariant
-    (the driver runs it as watchdog-sized device programs)."""
+    (the driver runs it as checkpoint-sized device programs)."""
     import dataclasses
 
     import jax
 
-    from hmcmt2d_tpu.sampler import adapt as A
+    from hmcmt2d.sampler import adapt as A
 
     P, C = 4, 3
     rng = np.random.default_rng(5)

@@ -3,18 +3,17 @@
 * Hybrid warmup (exact engine) -> main (fast engine): the warmup sample
   stream must be bit-identical to a pure exact-engine run (same engine, same
   keys), and the main phase must run to a sane posterior under the fast
-  engine (the production TPU recipe: thomas warmup -> fused main; on CPU the
-  stand-ins are complex128 warmup -> complex64+refine main).
+  engine (here complex128 warmup -> complex64+refine main).
 * Segmented warmup on the PLAIN (non-sharded) path is bit-exact with the
-  unsegmented path (round-3 ADVICE: only the sharded variant was covered).
+  unsegmented path.
 """
 
 import numpy as np
 import jax.numpy as jnp
 
-from hmcmt2d_tpu.io import HMCConfig
-from hmcmt2d_tpu.models import forward as F
-from hmcmt2d_tpu.sampler.driver import run_inversion
+from hmcmt2d.io import HMCConfig
+from hmcmt2d.models import forward as F
+from hmcmt2d.sampler.driver import run_inversion
 from tests.test_e2e import tiny_setup
 
 

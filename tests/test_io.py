@@ -1,32 +1,35 @@
-"""IO readers/writers: reference example files load and round-trip."""
+"""IO readers/writers: the seeded flagship deployment loads and round-trips."""
 
 import numpy as np
 import pytest
 
-from hmcmt2d_tpu.constants import SIGMA_AIR
-from hmcmt2d_tpu.io import read_data, read_model, read_startup, write_data, write_model
-from hmcmt2d_tpu.io.startup import parse_startup
-
-DPRISM = "/root/reference/HMCMT/examples/dprism3d"
-COPROD = "/root/reference/HMCMT/examples/coprod2"
+from hmcmt2d.constants import SIGMA_AIR
+from hmcmt2d.io import read_data, read_model, read_startup, write_data, write_model
+from hmcmt2d.io.startup import parse_startup
 
 
-def test_read_dprism_model():
-    mesh, sigma2d = read_model(f"{DPRISM}/dprism2d_G96x49.mod")
+def test_read_flagship_model(flagship_files):
+    mesh, sigma2d = read_model(flagship_files["model"])
     assert mesh.ny == 96
     assert mesh.nz == 49 + 7
     assert mesh.n_air == 7
     assert sigma2d.shape == (56, 96)
     assert np.all(sigma2d[:7] == SIGMA_AIR)
-    # origin shifted up by total air depth
+    # origin shifted up by the total air depth; y origin at the mesh centre
     np.testing.assert_allclose(float(mesh.origin[1]), 144400.0)
-    np.testing.assert_allclose(float(mesh.origin[0]), 51000.0)
-    # background is 100 Ohm.m
-    assert np.isclose(np.median(sigma2d[7:]), 0.01)
+    np.testing.assert_allclose(float(mesh.origin[0]), 110000.0)
+    # the start model is the homogeneous 100 Ohm.m earth
+    assert np.all(sigma2d[7:] == 0.01)
+    # the true model holds the 10 Ohm.m prism inside the uniform core
+    _, true2d = read_model(flagship_files["true_model"])
+    prism = np.argwhere(true2d == 0.1)
+    assert len(prism) > 0
+    assert prism[:, 0].min() > 7 and 8 <= prism[:, 1].min() <= prism[:, 1].max() < 88
+    np.testing.assert_array_equal(true2d, flagship_files["sigma_true"])
 
 
-def test_read_dprism_data():
-    data, obs, err = read_data(f"{DPRISM}/dprism2dobs.dat")
+def test_read_flagship_data(flagship_files):
+    data, obs, err = read_data(flagship_files["data"])
     assert data.n_rx == 41
     assert data.n_freq == 11
     assert data.data_type == "Impedance"
@@ -34,28 +37,34 @@ def test_read_dprism_data():
     assert data.n_data == 902
     assert data.comp_te and data.comp_tm
     assert obs.dtype.kind == "c"
-    np.testing.assert_allclose(obs[0], 2.004879e-01 + 1.986622e-01j)
-    np.testing.assert_allclose(err[1], 1.403792e-02)
+    # %15.6e round trip of the generated observations and 3 % errors
+    np.testing.assert_allclose(obs, flagship_files["obs"], rtol=1e-6)
+    np.testing.assert_allclose(err, 0.03 * np.abs(flagship_files["obs"]),
+                               rtol=1e-6)
     # flat indices are unique and within the cube
     fi = data.flat_index
     assert len(np.unique(fi)) == len(fi)
     assert fi.max() < data.n_freq * data.n_rx * data.n_comp
 
 
-def test_read_coprod_startup():
-    cfg, mesh, sigma2d, data, obs, err = read_startup(f"{COPROD}/startupfile")
-    assert cfg.burnin == 100 and cfg.total_samples == 10000
-    np.testing.assert_allclose(cfg.sig_bounds, (1e-4, 10.0))
-    assert cfg.dt == 0.015
+def test_read_flagship_startup(flagship_files):
+    cfg, mesh, sigma2d, data, obs, err = read_startup(
+        flagship_files["startupfile"])
+    assert cfg.burnin == 300 and cfg.total_samples == 10000
+    np.testing.assert_allclose(cfg.sig_bounds, (1e-4, 1.0))
+    assert cfg.dt == 0.03
     assert cfg.timestep == (6, 10)
     assert cfg.reg_param == 1.0
     assert cfg.sig_fix == (SIGMA_AIR,)
-    assert data.n_rx == 20 and data.n_freq == 12
-    assert mesh.ny == 76
+    assert cfg.n_chains == 8 and cfg.seed == 0 and cfg.adapt
+    assert cfg.mass_type == "gaussnewton" and cfg.mass_warmup == 200
+    assert cfg.warmup_pool == "median"
+    assert data.n_rx == 41 and data.n_freq == 11
+    assert mesh.ny == 96
 
 
-def test_model_roundtrip(tmp_path):
-    mesh, sigma2d = read_model(f"{DPRISM}/dprism2d_G96x49.mod")
+def test_model_roundtrip(tmp_path, flagship_files):
+    mesh, sigma2d = read_model(flagship_files["true_model"])
     p = tmp_path / "out.mod"
     write_model(p, mesh, sigma2d)
     mesh2, sigma2d2 = read_model(p)
@@ -65,8 +74,8 @@ def test_model_roundtrip(tmp_path):
     np.testing.assert_allclose(sigma2d2, sigma2d, rtol=0.005)  # %4.2e format
 
 
-def test_data_roundtrip(tmp_path):
-    data, obs, err = read_data(f"{DPRISM}/dprism2dobs.dat")
+def test_data_roundtrip(tmp_path, flagship_files):
+    data, obs, err = read_data(flagship_files["data"])
     p = tmp_path / "out.dat"
     write_data(p, data, obs, err)
     data2, obs2, err2 = read_data(p)
@@ -79,8 +88,8 @@ def test_data_roundtrip(tmp_path):
     np.testing.assert_allclose(data2.freqs, data.freqs, rtol=1e-4)
 
 
-def test_default_error_floor(tmp_path):
-    data, obs, err = read_data(f"{DPRISM}/dprism2dobs.dat")
+def test_default_error_floor(tmp_path, flagship_files):
+    data, obs, err = read_data(flagship_files["data"])
     p = tmp_path / "out.dat"
     write_data(p, data, obs)  # no errors given -> 3% amplitude
     _, _, err2 = read_data(p)
@@ -99,8 +108,8 @@ def test_truncated_inputs_raise_located_errors(tmp_path):
     raw StopIteration (failure-detection hygiene)."""
     import pytest
 
-    from hmcmt2d_tpu.io.data_io import read_data
-    from hmcmt2d_tpu.io.model_io import read_model
+    from hmcmt2d.io.data_io import read_data
+    from hmcmt2d.io.model_io import read_model
 
     bad_data = tmp_path / "trunc.dat"
     bad_data.write_text(

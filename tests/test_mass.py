@@ -12,13 +12,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from hmcmt2d_tpu.io import HMCConfig
-from hmcmt2d_tpu.models import forward as F
-from hmcmt2d_tpu.models import jacobian as J
-from hmcmt2d_tpu.models.posterior import build_inverse_problem
-from hmcmt2d_tpu.sampler import diagnostics as D
-from hmcmt2d_tpu.sampler import hmc as H
-from hmcmt2d_tpu.sampler.driver import (gauss_newton_mass, make_mass,
+from hmcmt2d.io import HMCConfig
+from hmcmt2d.models import forward as F
+from hmcmt2d.models import jacobian as J
+from hmcmt2d.models.posterior import build_inverse_problem
+from hmcmt2d.sampler import diagnostics as D
+from hmcmt2d.sampler import hmc as H
+from hmcmt2d.sampler.driver import (gauss_newton_mass, make_mass,
                                         mass_kind, run_inversion)
 from tests.test_e2e import tiny_setup
 
@@ -129,7 +129,7 @@ def test_driver_gn_schedule_end_to_end():
     assert accept_main > 0.1
     # checkpoint round-trip with the dense mass
     import tempfile, os
-    from hmcmt2d_tpu.sampler import checkpoint as CK
+    from hmcmt2d.sampler import checkpoint as CK
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "ck.npz")
         mass = gauss_newton_mass(run.problem, jnp.asarray(res.final.m[0]), 1.0)

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from hmcmt2d_tpu.constants import EPS0, MU0
-from hmcmt2d_tpu.ops import mt1d
+from hmcmt2d.constants import EPS0, MU0
+from hmcmt2d.ops import mt1d
 
 
 def test_halfspace_closed_form():

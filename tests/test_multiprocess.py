@@ -1,7 +1,7 @@
-"""True multi-process jax.distributed execution (the DCN code path).
+"""True multi-process jax.distributed execution (the multi-host code path).
 
-Round-2 VERDICT gap #4: ``distributed_init`` had never executed with more
-than one real process — tests and dryruns used one process with 8 virtual
+``distributed_init`` must execute with more than one real process — the
+other tests and dryruns use one process with 8 virtual
 devices, which exercises the SPMD program but not cross-process collectives.
 Here two real worker processes (2 local CPU devices each) form the 4-device
 (chains=2, freq=2) mesh, run the sharded warmup + sampler with gloo

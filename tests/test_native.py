@@ -9,7 +9,7 @@ the rebuild's native component.
 import numpy as np
 import pytest
 
-from hmcmt2d_tpu import native
+from hmcmt2d import native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
@@ -82,10 +82,10 @@ def test_two_simultaneous_factors_and_lifetime(rng):
 
 
 def test_against_device_solver(rng):
-    """Native oracle == the batched block-Thomas TPU solver."""
+    """Native oracle == the batched block-Thomas device solver."""
     import jax.numpy as jnp
 
-    from hmcmt2d_tpu.ops import solver as S
+    from hmcmt2d.ops import solver as S
 
     diag, offy, offz = random_interior(rng, 7, 6)
     sys = S.InteriorSystem(jnp.asarray(diag), jnp.asarray(offy), jnp.asarray(offz))

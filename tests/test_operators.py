@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from hmcmt2d_tpu import mesh as M
-from hmcmt2d_tpu.utils import cpu_reference as R
+from hmcmt2d import mesh as M
+from hmcmt2d.utils import cpu_reference as R
 from tests.conftest import small_mesh
 
 

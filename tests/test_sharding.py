@@ -10,12 +10,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from hmcmt2d_tpu.io import HMCConfig
-from hmcmt2d_tpu.models import forward as F
-from hmcmt2d_tpu.models.posterior import build_inverse_problem
-from hmcmt2d_tpu.parallel import make_device_mesh, run_sharded_hmc
-from hmcmt2d_tpu.sampler import hmc as H
-from hmcmt2d_tpu.sampler.driver import hmc_options, make_potential_vg
+from hmcmt2d.io import HMCConfig
+from hmcmt2d.models import forward as F
+from hmcmt2d.models.posterior import build_inverse_problem
+from hmcmt2d.parallel import make_device_mesh, run_sharded_hmc
+from hmcmt2d.sampler import hmc as H
+from hmcmt2d.sampler.driver import hmc_options, make_potential_vg
 from tests.test_e2e import tiny_setup
 
 
@@ -48,6 +48,26 @@ def test_cube_potential_matches_masked(tiny_problem_shardable):
     U_vec, (mis_v, mn_v, _) = prob.potential(m, jnp.asarray(m0), 1.0)
     np.testing.assert_allclose(float(mis_c), float(mis_v), rtol=1e-12)
     np.testing.assert_allclose(float(U_cube), float(U_vec), rtol=1e-12)
+
+
+@pytest.mark.parametrize("n_chain_dev, n_freq_dev", [(4, 1), (2, 2)])
+def test_sharded_potential_value_and_grad_matches_single(
+        tiny_problem_shardable, n_chain_dev, n_freq_dev):
+    """ShardedSampler.potential_value_and_grad (what chip_smoke.py --four
+    compares on real cards) == the single-device batched potential."""
+    from hmcmt2d.parallel.multichain import ShardedSampler
+
+    prob, m0 = tiny_problem_shardable
+    rng = np.random.default_rng(3)
+    m = jnp.asarray(m0 + 0.2 * rng.standard_normal((4, len(m0))))
+    mref = jnp.broadcast_to(jnp.asarray(m0), m.shape)
+    (U1, (_a, _b, pred1)), g1 = jax.jit(make_potential_vg(prob, 1.0))(m, mref)
+    ss = ShardedSampler(prob, 1.0, make_device_mesh(n_chain_dev, n_freq_dev))
+    U, g, pred = ss.potential_value_and_grad(m, mref)
+    np.testing.assert_allclose(np.asarray(U), np.asarray(U1), rtol=1e-10)
+    np.testing.assert_allclose(np.asarray(g), np.asarray(g1), rtol=1e-8,
+                               atol=1e-12 * float(jnp.abs(g1).max()))
+    np.testing.assert_allclose(np.asarray(pred), np.asarray(pred1), rtol=1e-10)
 
 
 def test_sharded_hmc_runs_and_matches_semantics(tiny_problem_shardable):
@@ -111,8 +131,8 @@ def test_sharded_driver_warmup_segments_resume(tiny_problem_shardable, tmp_path)
     """
     import os
 
-    from hmcmt2d_tpu.parallel.multichain import ShardedSampler
-    from hmcmt2d_tpu.sampler import adapt as A
+    from hmcmt2d.parallel.multichain import ShardedSampler
+    from hmcmt2d.sampler import adapt as A
 
     prob, m0 = tiny_problem_shardable
     cfg = HMCConfig(dt=0.05, timestep=(2, 3), sig_bounds=(1e-4, 10.0),
@@ -137,7 +157,7 @@ def test_sharded_driver_warmup_segments_resume(tiny_problem_shardable, tmp_path)
     assert np.asarray(mass_s.inv_m).shape == (len(m0),)
 
     # --- segmented + checkpoint/resume bit-exactness on the sharded path
-    from hmcmt2d_tpu.sampler import checkpoint as CK
+    from hmcmt2d.sampler import checkpoint as CK
 
     mass = H.identity_mass(len(m0))
     S = 6
@@ -167,8 +187,8 @@ def test_sharded_driver_warmup_segments_resume(tiny_problem_shardable, tmp_path)
 def test_sharded_warmup_segmented_matches_single(tiny_problem_shardable):
     """seg-mented sharded warmup must be bit-exact with the one-scan path
     (same global key schedule + precomputed window schedule)."""
-    from hmcmt2d_tpu.parallel.multichain import ShardedSampler
-    from hmcmt2d_tpu.utils.host import to_host
+    from hmcmt2d.parallel.multichain import ShardedSampler
+    from hmcmt2d.utils.host import to_host
 
     problem, m0 = tiny_problem_shardable
     mesh = make_device_mesh(2, 2)
@@ -200,15 +220,15 @@ def test_sharded_warmup_segmented_matches_single(tiny_problem_shardable):
 def test_sharded_median_alpha_pool_survives_stuck_chain():
     """Sharded warmup with alpha_pool='median' must all_gather the chains
     axis and keep adapting when a minority of GLOBAL chains is pinned at
-    alpha=0 — round 4 silently downgraded median to mean on the SPMD path,
-    leaving the production recipe exposed to the dt death-spiral it was
-    built to prevent (VERDICT r4 weak #5)."""
+    alpha=0 — a silent downgrade of median to mean on the SPMD path would
+    leave the production recipe exposed to the dt death-spiral it was built
+    to prevent."""
     from functools import partial
 
     from jax import lax
     from jax.sharding import Mesh, PartitionSpec as PS
 
-    from hmcmt2d_tpu.sampler import adapt as A
+    from hmcmt2d.sampler import adapt as A
 
     P, C = 3, 6
     m0 = np.zeros((C, P))
@@ -254,7 +274,7 @@ def test_sharded_driver_gn_schedule(tiny_problem_shardable):
     """Full driver path with masstype gaussnewton over a (2 chains x 2 freq)
     device mesh: diagonal warmup (SPMD) -> GN mass -> sharded dt re-adaptation
     under the fixed dense metric -> dense-mass SPMD main phase."""
-    from hmcmt2d_tpu.sampler.driver import run_inversion
+    from hmcmt2d.sampler.driver import run_inversion
     from tests.test_e2e import tiny_setup
 
     mesh_, start_sig, data, obs, err = tiny_setup()

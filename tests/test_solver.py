@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import scipy.sparse.linalg as spla
 
-from hmcmt2d_tpu import mesh as M
-from hmcmt2d_tpu.ops import solver as S
-from hmcmt2d_tpu.utils import cpu_reference as R
+from hmcmt2d import mesh as M
+from hmcmt2d.ops import solver as S
+from hmcmt2d.utils import cpu_reference as R
 from tests.conftest import small_mesh
 
 
@@ -63,7 +63,7 @@ def test_factor_reuse_and_refinement():
 def test_low_precision_factor_with_refinement():
     """complex64 factor + f64 residual refinement reaches near-f64 accuracy.
 
-    This is the TPU production configuration (TPU has no complex128).
+    The mixed-precision configuration (``--precision f32 --refine N``).
     """
     msh, st, omega, Aii, (nzi, nyi) = _problem("TM", freq=1.0)
     sys64 = S.interior_system(st, omega)                       # f64 accumulation
@@ -117,7 +117,7 @@ def test_bcr_odd_block_counts():
 
 def test_bcr_batched_and_refined():
     """BCR under vmap (the production batch axis) and with low-precision
-    factor + refinement (the TPU configuration)."""
+    factor + refinement (the mixed-precision configuration)."""
     msh, st, omega0, _, (nzi, nyi) = _problem("TM")
     freqs = np.array([0.05, 0.5, 5.0])
     omegas = 2 * np.pi * freqs
@@ -146,9 +146,9 @@ def test_bcr_batched_and_refined():
 
 
 def test_gj_inverse_matches_lu():
-    """Blocked unpivoted Gauss-Jordan (the MXU fast path) vs pivoted LU on
-    the real equilibrated operators, both solver structures, f64 and the
-    TPU production combo (complex64 + refinement)."""
+    """Blocked unpivoted Gauss-Jordan (``--inv gj``) vs pivoted LU on the
+    real equilibrated operators, both solver structures, f64 and the
+    mixed-precision combo (complex64 + refinement)."""
     for mode in ("TE", "TM"):
         for freq in (0.01, 100.0):
             msh, st, omega, Aii, (nzi, nyi) = _problem(mode, freq=freq)
@@ -163,7 +163,7 @@ def test_gj_inverse_matches_lu():
                     x, want, rtol=1e-8, atol=1e-10 * np.abs(want).max(),
                     err_msg=f"{mode} f={freq} {method}+gj")
 
-    # TPU production precision: complex64 GJ factor + f64-residual refinement
+    # mixed precision: complex64 GJ factor + f64-residual refinement
     msh, st, omega, Aii, (nzi, nyi) = _problem("TM", freq=1.0)
     sys64 = S.interior_system(st, omega)
     sys32 = S.interior_system(st, omega, dtype=jnp.complex64)
@@ -210,7 +210,7 @@ def test_blocked_thomas_solve_matches_scipy():
                                        atol=1e-10 * np.abs(want).max(),
                                        err_msg=f"{mode} {ny}x{nz}")
 
-    # batched + complex64 + refinement (the TPU production combo)
+    # batched + complex64 + refinement (the mixed-precision combo)
     msh, st, omega, Aii, (nzi, nyi) = _problem("TM", freq=0.5)
     freqs = 2 * np.pi * np.array([0.05, 5.0])
     sys_b = S.interior_system(st, jnp.asarray(freqs)[:, None, None])
